@@ -14,8 +14,8 @@ baselines:
 	bash scripts/run-baselines.sh
 
 sweep:
-	bash scripts/run-tpu-sweep.sh
+	bash scripts/run-sweep.sh
 
 clean:
 	$(MAKE) -C dpu_olap_tpu/native clean
-	rm -rf bench_results.json BENCH_DETAILS.json sweep_results.jsonl baseline_results
+	rm -rf bench_out baseline_results .jax_cache

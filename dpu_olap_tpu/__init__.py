@@ -1,16 +1,18 @@
-"""dpu_olap_tpu — a TPU-native vectorized query-execution framework.
+"""dpu_olap_tpu — a vectorized query-execution framework in JAX.
 
-A brand-new JAX/XLA/Pallas re-design of the capabilities of upmem/dpu_olap
-(reference mounted at /root/reference): columnar SQL compute operators —
-filter, take (gather), sum-aggregate, radix hash-partition, and partitioned
-hash join (build + probe + take) — executed over HBM-resident Arrow-layout
-columnar batches on TPU device meshes.
+A JAX/XLA re-design of the capabilities of upmem/dpu_olap: columnar SQL
+compute operators — filter, take (gather), sum-aggregate, radix
+hash-partition, and partitioned hash join (build + probe + take) — executed
+over device-resident Arrow-layout columnar batches on one GPU or a mesh of
+GPUs.
 
-Architecture (TPU-first, not a port):
-  - ``ops/``       device kernels: XLA/Pallas compute paths (the equivalent of
-                   the reference's DPU C kernels, ``dpu/shared/kernels/*``).
-  - ``parallel/``  device mesh runtime + distributed shuffle over ICI
+Architecture (a re-design, not a port):
+  - ``ops/``       device ops: XLA compute paths (the equivalent of the
+                   reference's DPU C kernels, ``dpu/shared/kernels/*``).
+  - ``parallel/``  device mesh runtime + distributed all-to-all shuffle
                    (the equivalent of ``host/dpuext`` + ``host/partition``).
+  - ``backend``    the one module that knows the platform: supported
+                   platforms, device memory budgets, compile cache.
   - ``operators/`` operator drivers with the reference's uniform
                    Prepare()/Run()/Timers() protocol (``host/{filter,join,...}``).
   - ``native/``    C++ host runtime: parallel memcpy, partition slabs, timers,

@@ -1,7 +1,7 @@
-"""Benchmark harness (Google Benchmark analog).
+"""Benchmark timing (Google Benchmark analog).
 
 Counters follow the reference: items/s, bytes/s, per-phase ms (SURVEY §6),
 emitted as JSON (scripts/parse_results.py consumes them into CSV).
 """
 
-from .harness import BenchResult, run_benchmark, time_fn  # noqa: F401
+from .harness import time_fn  # noqa: F401

@@ -1,6 +1,6 @@
 """Arrow-layout columnar Batch/Table over JAX arrays.
 
-The TPU-native replacement for the reference's use of ``arrow::RecordBatch``
+The replacement for the reference's use of ``arrow::RecordBatch``
 on the host plus raw MRAM buffers on the device (host/dpuext/arrow_utils.cc:
 columns are fixed-width primitive buffers moved wholesale). Here a column is a
 device-resident ``jax.Array``; batches are dicts of equally-long columns, with

@@ -66,18 +66,16 @@ class Flags:
 
     enable_perf: bool = True
     enable_log: bool = False
-    enable_trace: bool = False
     ht_load_factor: float = 0.5
     use_radix_partitioning: bool = True
     shuffle_slack: float = 2.0
-    # Filter compaction algorithm: "auto" (pallas on TPU, scatter elsewhere)
-    # | "pallas" | "scatter" | "sort"
-    filter_impl: str = "auto"
     # Virtual-DPU round streaming (the reference's batch-round outer loop,
     # filter_dpu.cc:127-156): max rows resident per dispatched round across
-    # all devices, and how many rounds may be in flight before the collector
-    # blocks (bounded pipelining; the reference bounds per-rank queues).
-    stream_round_rows: int = 64 << 20
+    # all devices (None: derived from device memory,
+    # parallel/streaming.round_geometry), and how many rounds may be in
+    # flight before the collector blocks (bounded pipelining; the reference
+    # bounds per-rank queues).
+    stream_round_rows: int | None = None
     stream_max_inflight: int = 2
     # Per-phase attribution inside the distributed join (the reference's
     # ACTIVATE_JOIN_TIMERS compile flag, host/join/join_dpu.cc:27-49):
@@ -86,17 +84,15 @@ class Flags:
     join_timers: bool = False
     # Fuse the per-fragment counts into the stacked-plane all_to_all (ONE
     # collective per exchange instead of two) by riding them in a 128-lane
-    # tail column: +128/cell relative ICI bytes for one fewer collective
-    # dispatch+latency. Off by default — measured a wash on the CPU proxy
-    # at D<=4 and the tail bytes are pure loss on real ICI where the tiny
-    # counts collective overlaps anyway; kept selectable for hardware
-    # re-measurement (MULTICHIP_SCALING.json quantifies both).
+    # tail column: +128/cell relative exchange bytes for one fewer
+    # collective dispatch+latency. Off by default — a wash on the virtual
+    # CPU mesh at D<=4; kept selectable until a four-card measurement
+    # decides it.
     shuffle_counts_inband: bool = False
 
 
 FLAGS = Flags(
     enable_perf=_env_int("ENABLE_PERF", 1) != 0,
     enable_log=_env_int("ENABLE_LOG", 0) != 0,
-    enable_trace=_env_int("ENABLE_TRACE", 0) != 0,
     join_timers=_env_int("ACTIVATE_JOIN_TIMERS", 0) != 0,
 )

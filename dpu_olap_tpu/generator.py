@@ -13,7 +13,7 @@ Reference: host/generator/generator.cc —
     (host/join/join_benchmark.cc:69, host/filter/filter_benchmark.cc:76).
 
 Exact bit-parity with arrow's pcg32 stream is NOT a goal (the differential
-tests run oracle and TPU paths on *identical* generated inputs); distribution
+tests run oracle and device paths on *identical* generated inputs); distribution
 parity and determinism under seed 42 are.
 """
 

@@ -1,6 +1,6 @@
 """ctypes bindings for the native host runtime (runtime.cpp).
 
-Builds the shared library on first import (g++, no external deps) and exposes
+Builds the shared library on first use (make + g++, no external deps) and exposes
 Python wrappers:
 
   parallel_memcpy   - threaded blocked memcpy (host/memory_utils/memcpy.h)
@@ -15,6 +15,7 @@ equivalents (see utils/timer.py); ``AVAILABLE`` reports the state.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import threading
@@ -24,6 +25,8 @@ import numpy as np
 
 _DIR = Path(__file__).resolve().parent
 _LIB_PATH = _DIR / "libueruntime.so"
+_STAMP = _DIR / "libueruntime.so.sha256"  # digest of the sources it was built from
+_SOURCES = ("runtime.cpp", "Makefile")
 _build_lock = threading.Lock()
 
 _lib = None
@@ -31,23 +34,41 @@ _build_failed = False
 AVAILABLE = False
 
 
+def _sources_digest() -> str:
+    """sha256 over the committed sources the library is built from."""
+    h = hashlib.sha256()
+    for name in _SOURCES:
+        h.update(name.encode())
+        h.update((_DIR / name).read_bytes())
+    return h.hexdigest()
+
+
 def _build() -> bool:
-    src = _DIR / "runtime.cpp"
-    if _LIB_PATH.exists() and _LIB_PATH.stat().st_mtime >= src.stat().st_mtime:
+    """Reuse the prebuilt library only when its stamp names the digest of
+    the current sources; otherwise rebuild. The library and its stamp are
+    written under temporary names and renamed into place, so concurrent
+    importers never load a half-written file."""
+    digest = _sources_digest()
+    if _LIB_PATH.exists() and _STAMP.exists() and _STAMP.read_text() == digest:
         return True
+    tmp = f"{_LIB_PATH.name}.{os.getpid()}.tmp"
     try:
         subprocess.run(
-            ["make", "-s", "-C", str(_DIR)],
+            ["make", "-s", "-B", "-C", str(_DIR), f"TARGET={tmp}"],
             check=True,
             capture_output=True,
             text=True,
         )
-        return True
     except (subprocess.CalledProcessError, FileNotFoundError) as e:  # pragma: no cover
         import sys
 
         print(f"[dpu_olap_tpu.native] build failed: {e}", file=sys.stderr)
         return False
+    os.replace(_DIR / tmp, _LIB_PATH)
+    stamp_tmp = _STAMP.with_name(f"{_STAMP.name}.{os.getpid()}.tmp")
+    stamp_tmp.write_text(digest)
+    os.replace(stamp_tmp, _STAMP)
+    return True
 
 
 def _load():

@@ -2,9 +2,9 @@
 
 Every operator follows ctor(device_set, inputs...) -> Prepare() -> Run() ->
 Timers() (reference host/filter/filter_dpu.h:14-29, host/join/join_dpu.h),
-with a Tpu variant (device mesh execution) and a Native variant (pyarrow on
-CPU — the golden-result oracle, like the reference's Arrow ExecPlan
-baselines).
+with a device variant (the ``*Tpu`` classes: device mesh execution) and a
+Native variant (pyarrow on CPU — the golden-result oracle, like the
+reference's Arrow ExecPlan baselines).
 """
 
 from .filter_op import FilterNative, FilterTpu  # noqa: F401

@@ -23,7 +23,7 @@ from ..timer import Timers, timed
 class SumTpu:
     """Integer columns use the exact uint64 pair reduction; float columns use
     the Double variant (device f32 block partials + host f64 combine) — the
-    TPU analog of the reference's AggrNative<UInt64Array>/<DoubleArray> pair
+    device analog of the reference's AggrNative<UInt64Array>/<DoubleArray> pair
     (host/aggr/aggr_native.cc:95-96)."""
 
     def __init__(self, ds: DeviceSet, table: Table, column: str = "a"):

@@ -90,7 +90,7 @@ class FilterTpu:
 
         def dispatch(r, staged):
             dev = self.ds.scatter(staged)
-            return self._fn(dev)  # async: returns before the TPU finishes
+            return self._fn(dev)  # async: returns before the device finishes
 
         def collect(r, handle):
             padded, counts = handle

@@ -7,7 +7,8 @@ global hash partitions, carrying value columns.
 
 Two engines:
   * resident (default when P is a multiple of the device count and the table
-    fits HBM): device partition + ONE all-to-all; partitions stay HBM-resident
+    fits device memory): device partition + ONE all-to-all; partitions stay
+    device-resident
     as DevicePartitions (cells + counts — what the distributed join consumes)
     and only leave the device on an explicit to_host().
   * host-staged (parallel/partitioner.Partitioner): the out-of-core fallback
@@ -20,17 +21,20 @@ from typing import Dict, List
 
 import numpy as np
 
+from .. import backend
 from ..columnar import Table
 from ..parallel.mesh import DeviceSet
 from ..parallel.partitioner import DevicePartitions, Partitioner, ResidentPartitioner
 from ..timer import Timers
 
 
-class PartitionTpu:
-    # Resident ceiling: cells ~= rows * slack per column; beyond this the
-    # host-staged engine streams rounds instead.
-    MAX_RESIDENT_ROWS = 256 << 20
+# Device bytes per row while the resident engine holds the input and its
+# slack-padded cells (~rows * slack per column); beyond the budget the
+# host-staged engine streams rounds instead.
+RESIDENT_BYTES_PER_ROW = 64
 
+
+class PartitionTpu:
     def __init__(
         self,
         ds: DeviceSet,
@@ -43,6 +47,9 @@ class PartitionTpu:
         self.nr_partitions = nr_partitions
         self.resident = resident
         self.timers = Timers()
+        self.max_resident_rows = backend.rows_within(
+            RESIDENT_BYTES_PER_ROW, ds.devices[0]
+        )
 
     def Prepare(self):
         self.payload_cols = [c for c in self.table.names if c != self.key_col]
@@ -51,7 +58,8 @@ class PartitionTpu:
             self.resident = (
                 self.nr_partitions % d == 0
                 and self.table.num_rows % d == 0
-                and self.table.num_rows <= self.MAX_RESIDENT_ROWS
+                # the budget is per device; each holds 1/d of the rows
+                and self.table.num_rows // d <= self.max_resident_rows
             )
         if self.resident:
             self._parter = ResidentPartitioner(

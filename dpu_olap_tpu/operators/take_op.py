@@ -33,59 +33,19 @@ class TakeTpu:
         self.timers = Timers()
 
     def Prepare(self):
-        import jax.numpy as jnp
-
-        from ..ops.filter import _on_tpu
-        from ..ops.take_pallas import take_sorted, takeable_sorted
         from ..parallel.streaming import round_geometry
 
         d = self.ds.nr_devices
         b = len(self.data)
         assert b % d == 0
         n = self.data[0].num_rows
-        k = self.indices[0].num_rows
         self.rpr, self.n_rounds = round_geometry(b, d, n)
-        rpr = self.rpr
 
-        def per_device_rowgather(data, idx):  # (1, rpr, n) shard-local
-            return jax.vmap(take)(data[0], idx[0]), jnp.zeros((1,), jnp.int32)
+        def per_device(data, idx):  # (1, rpr, n) shard-local
+            return jax.vmap(take)(data[0], idx[0])
 
-        # sorted-stream path: fuse the round's rpr batches into ONE
-        # sort->stream->sort take over the concatenated table (indices get
-        # per-batch offsets), amortizing the index sorts across batches
-        self._use_sorted = (
-            _on_tpu()
-            and takeable_sorted(rpr * n, rpr * k)
-            and np.asarray(self.data[0][self.data_col]).dtype.itemsize == 4
-        )
-
-        def per_device_sorted(data, idx):
-            d2, i2 = data[0], idx[0]  # (rpr, n), (rpr, k)
-            offs = (
-                jax.lax.broadcasted_iota(jnp.uint32, (rpr, 1), 0)
-                * jnp.uint32(n)
-            )
-            qi = (
-                jnp.minimum(i2.astype(jnp.uint32), jnp.uint32(n - 1)) + offs
-            ).reshape(rpr * k)
-            out, flag = take_sorted(d2.reshape(rpr * n), qi)
-            return out.reshape(rpr, k), flag.reshape(1)
-
-        per_device = per_device_sorted if self._use_sorted else per_device_rowgather
         self._fn = self.ds.shard_fn(
-            per_device, in_specs=(P(AXIS), P(AXIS)), out_specs=(P(AXIS), P(AXIS))
-        )
-        # correctness escape hatch for adversarially clustered indices: the
-        # row-gather program re-runs an overflowed round (the cell-doubling
-        # retry pattern, without a window to size)
-        self._fn_fallback = (
-            self.ds.shard_fn(
-                per_device_rowgather,
-                in_specs=(P(AXIS), P(AXIS)),
-                out_specs=(P(AXIS), P(AXIS)),
-            )
-            if self._use_sorted
-            else self._fn
+            per_device, in_specs=(P(AXIS), P(AXIS)), out_specs=P(AXIS)
         )
         return self
 
@@ -112,16 +72,9 @@ class TakeTpu:
 
         def dispatch(r, staged):
             data, idx = staged
-            sd, si = self.ds.scatter(data), self.ds.scatter(idx)
-            out, flag = self._fn(sd, si)
-            return out, flag, (sd, si)
+            return self._fn(self.ds.scatter(data), self.ds.scatter(idx))
 
-        def collect(r, out):
-            vals, flag, staged_dev = out
-            if self._use_sorted and int(np.asarray(flag).max()) != 0:
-                # window overflow (extreme index clustering): redo the round
-                # on the row-gather program — device-resident inputs reused
-                vals, _ = self._fn_fallback(*staged_dev)
+        def collect(r, vals):
             return list(np.asarray(vals).reshape(-1, k))
 
         rounds = stream_rounds(

@@ -1,6 +1,6 @@
-"""Device kernels: the TPU compute path (XLA + Pallas).
+"""Device ops: the XLA compute path.
 
-Each module is the TPU-native re-expression of one reference DPU kernel
+Each module is the re-expression of one reference DPU kernel
 (dpu/shared/kernels/*) or device library (dpu/shared/hashtable):
 
   hashing    - Wang hash + radix bucket mapping  (partition.c:20-49)

@@ -7,7 +7,7 @@ Behavioral parity with the reference:
     top log2(nr_partitions) bits of the hash (partition.c:44-49,
     USE_RADIX_PARTITIONING=1 in shared/umq/cflags.h:28-30).
 
-All functions are vectorized uint32 jnp ops (VPU work on TPU).
+All functions are vectorized uint32 jnp ops.
 """
 
 from __future__ import annotations

@@ -6,7 +6,7 @@ linear-probe table in MRAM with 16 hardware-mutex-striped writers
 kernels with an always-match PK/FK contract (hash_probe.h:15, asserts at
 hash_build.c:31 / hash_probe.c:33).
 
-TPU-native redesign: per-element linear probing and mutexes do not vectorize.
+Redesign: per-element linear probing and mutexes do not vectorize.
 Instead the table is d-ary *cuckoo*: each key has d=3 candidate slots given by
 independent multiply-shift mixes of its Wang hash. Insertion is a fixed point
 of whole-array scatter/gather rounds — no locks, no per-element loops:
@@ -23,7 +23,7 @@ of whole-array scatter/gather rounds — no locks, no per-element loops:
 Every round retires lanes, displaced occupants re-enter with a different way,
 and with load factor <= 0.5 the whole build converges in a handful of rounds
 w.h.p. — each round is a constant number of full-array gathers/scatters, i.e.
-HBM-bandwidth work, the right currency on TPU.
+memory-bandwidth work.
 
 Probe is branch-free: gather the d candidate slots, compare, select — exactly
 d random gathers per query versus the reference's expected-1-plus linear
@@ -42,7 +42,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from .filter import _on_tpu
 from .hashing import wang_hash
 
 EMPTY = np.uint32(0xFFFFFFFF)
@@ -182,10 +181,8 @@ def ht_probe(
     Reference analog: kernel_hash_probe's per-element ht_get chain
     (hash_probe.c:29-40); here d gathers + compares, branch-free.
 
-    NOTE: measured perf-dead on v5e (~0.5M rows/s — random gathers are
-    index-rate-bound, DESIGN.md). The performant TPU-native table is the
-    sorted store below (ht_build_sorted/ht_probe_sorted); this cuckoo path
-    is kept as the direct structural re-expression of hashtable.c.
+    The join's default path is the co-sort join (ops/join.py); this cuckoo
+    path is kept as the direct structural re-expression of hashtable.c.
     """
     capacity = table.capacity
     log2_cap = int(np.log2(capacity))
@@ -205,25 +202,17 @@ def ht_probe(
 
 
 # ---------------------------------------------------------------------------
-# Sorted-store hash table — the performant TPU-native ht_build/ht_get.
+# Sorted-store hash table.
 #
-# Reference: dpu/shared/hashtable/hashtable.{h,c} again, but re-expressed for
-# what v5e is actually fast at. Every pointer-chasing/random-slot design is
-# index-rate-bound on TPU (cuckoo probe above: ~0.5M rows/s; XLA 1-D gather:
-# 141M idx/s), while sorts and sequential merges run near memory speed
-# (ops/sort_pallas.py tree sort, ops/merge_pallas.py streaming merge-probe).
-# So the "hash table" is the sorted (key, value) array itself:
+# Reference: dpu/shared/hashtable/hashtable.{h,c} again, re-expressed without
+# slots: the "hash table" is the sorted (key, value) array itself.
 #
-#   build  = one bitonic tree sort of (keys, values)        [O(n log n) but
-#            bandwidth-bound passes; 2-operand 2Mi = 2.3ms]
-#   probe  = sort (query, pos) -> one streaming merge pass over the store
-#            (merge_probe_pallas: greatest key <= q + its payload) -> sort
-#            back by pos with `found` packed into the restore key's low bit.
+#   build  = one sort of (keys, values)
+#   probe  = one binary search per query (greatest key <= q + its payload)
 #
-# No hashing at all — the Wang mix exists to scatter keys across slots, and
-# slots are exactly what TPU cannot touch efficiently. Uniqueness of store
-# keys is still required (the reference PK contract); queries may repeat.
-# 0xFFFFFFFF stays reserved as the EMPTY/invalid sentinel on both sides.
+# No hashing at all. Uniqueness of store keys is still required (the
+# reference PK contract); queries may repeat. 0xFFFFFFFF stays reserved as
+# the EMPTY/invalid sentinel on both sides.
 # ---------------------------------------------------------------------------
 
 
@@ -252,12 +241,11 @@ jax.tree_util.register_dataclass(
 )
 
 
-@partial(jax.jit, static_argnames=("interpret",))
+@jax.jit
 def ht_build_sorted(
     keys: jnp.ndarray,
     values: jnp.ndarray,
     valid: jnp.ndarray | None = None,
-    interpret: bool = False,
 ) -> SortedTable:
     """Sort (keys, values) ascending; invalid lanes become the EMPTY tail.
 
@@ -268,66 +256,17 @@ def ht_build_sorted(
     v = values.astype(jnp.uint32)
     if valid is not None:
         k = jnp.where(valid, k, EMPTY)
-    from .sort_pallas import sort_bitonic, sortable_bitonic
-
-    if (_on_tpu() or interpret) and sortable_bitonic(k.shape[0]):
-        sk, sv = sort_bitonic((k, v), interpret=interpret)
-    else:
-        sk, sv = jax.lax.sort([k, v], num_keys=1)
+    sk, sv = jax.lax.sort([k, v], num_keys=1)
     return SortedTable(keys=sk, values=sv)
 
 
-def _probe_sorted_stream(table, q, interpret):
-    """Shared sort->merge core: probe the sorted-query stream. Returns
-    (spos, pval, found_s) of length npow >= k — sorted-query order, where
-    spos is each entry's original position (pads, if any, carry pos >= k
-    and are never found: their key is the EMPTY sentinel)."""
-    from .merge_pallas import merge_probe_pallas
-    from .sort_pallas import sort_bitonic
-
-    k = q.shape[0]
-    pos = jax.lax.broadcasted_iota(jnp.uint32, (k,), 0)
-    # pad to the sort's power-of-two length HERE with distinct pos keys
-    # >= k: queries may legitimately BE the EMPTY sentinel (padded
-    # fragments), and sort_bitonic's anonymous internal pads would
-    # interleave with them, leaking pad payloads into the kept slice
-    # and displacing real pos entries through the restore sort
-    # (round-3 review finding). With pos = k..npow-1 the pads restore
-    # to [k, npow) and [:k] is exact.
-    npow = 1 << (k - 1).bit_length()
-    q_p, pos_p = q, pos
-    if npow != k:
-        q_p = jnp.concatenate([q, jnp.full((npow - k,), EMPTY, jnp.uint32)])
-        pos_p = jnp.arange(npow, dtype=jnp.uint32)
-    sq, spos = sort_bitonic((q_p, pos_p), interpret=interpret)
-    has, pkey, (pval,) = merge_probe_pallas(
-        sq, table.keys, (table.values,), interpret=interpret
-    )
-    found_s = has & (pkey == sq) & (sq != EMPTY)
-    return spos, pval, found_s
-
-
-@partial(jax.jit, static_argnames=("interpret",))
+@jax.jit
 def ht_probe_sorted(
-    table: SortedTable, queries: jnp.ndarray, interpret: bool = False
+    table: SortedTable, queries: jnp.ndarray
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """(values, found) per query against a SortedTable, query order."""
+    """(values, found) per query against a SortedTable, query order: one
+    binary search per query."""
     q = queries.astype(jnp.uint32)
-    k = q.shape[0]
-    from .sort_pallas import sort_bitonic, sortable_bitonic
-
-    use_pallas = (_on_tpu() or interpret) and sortable_bitonic(k)
-    if use_pallas:
-        spos, pval, found_s = _probe_sorted_stream(table, q, interpret)
-        # restore key packs found into bit 0: one payload plane, 2-op sort
-        rk = (spos << jnp.uint32(1)) | found_s.astype(jnp.uint32)
-        rk2, vout = sort_bitonic((rk, pval), interpret=interpret)
-        return (
-            jnp.where(rk2[:k] & jnp.uint32(1), vout[:k], 0),
-            (rk2[:k] & jnp.uint32(1)).astype(bool),
-        )
-    # CPU / tiny-shape fallback: binary search (fine off-TPU; never the TPU
-    # path — jnp.searchsorted measured 6M idx/s on v5e)
     sidx = jnp.searchsorted(
         _signed_view(table.keys), _signed_view(q), side="right"
     )
@@ -338,36 +277,19 @@ def ht_probe_sorted(
     return jnp.where(found, vat, 0), found
 
 
-@partial(jax.jit, static_argnames=("interpret",))
+@jax.jit
 def ht_probe_sorted_stream(
-    table: SortedTable, queries: jnp.ndarray, interpret: bool = False
+    table: SortedTable, queries: jnp.ndarray
 ) -> tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
-    """Order-free probe: (pos, values, found) in sorted-QUERY stream order.
+    """Order-free probe: (pos, values, found) in an unspecified stream order.
 
-    Skips ht_probe_sorted's restore sort (the round-4 'bookend-sort tax':
-    the merge stream runs ~550M q/s while the restored probe lands at
-    ~257M/s). Every real query appears exactly once in the stream; pos is
-    its original position, so consumers that aggregate over matches, feed
-    the result into another sort, or scatter lazily
-    (vals.at[pos].set(...)) never pay for query order. The returned arrays
-    have length npow = next_pow2(k); pad entries (only when k is not a
-    power of two) carry pos >= k and found=False.
-
-    Reference analog: ht_get's query-order output (hashtable.c:167-192) is
-    free on the DPU because MRAM loads are random-access; on TPU order is
-    the expensive half, so the contract splits like take_sorted_stream."""
-    q = queries.astype(jnp.uint32)
-    k = q.shape[0]
-    from .sort_pallas import sort_bitonic, sortable_bitonic
-
-    if (_on_tpu() or interpret) and sortable_bitonic(k):
-        spos, pval, found_s = _probe_sorted_stream(table, q, interpret)
-        return spos, jnp.where(found_s, pval, 0), found_s
-    # CPU / tiny-shape fallback: ordered probe re-expressed as a stream.
-    # The stream ORDER is unspecified by contract (consumers key on pos);
-    # here it is query order with pos = identity.
-    val, found = ht_probe_sorted(table, q, interpret=interpret)
-    pos = jax.lax.broadcasted_iota(jnp.uint32, (k,), 0)
+    Every query appears exactly once in the stream and pos is its original
+    position, so consumers that aggregate over matches, feed the result
+    into another sort, or scatter lazily (vals.at[pos].set(...)) never
+    depend on query order. With a binary-search probe the stream is query
+    order itself (pos = identity)."""
+    val, found = ht_probe_sorted(table, queries)
+    pos = jax.lax.broadcasted_iota(jnp.uint32, (queries.shape[0],), 0)
     return pos, val, found
 
 

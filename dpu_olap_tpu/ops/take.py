@@ -3,17 +3,8 @@
 Reference: dpu/shared/kernels/take.c — streams index blocks through WRAM and
 issues 4-byte random MRAM loads per index (take.c:27-41).
 
-TPU-native: XLA's 1-D element gather is index-rate-bound (~140M idx/s
-measured on v5e), so the default path reshapes the column into 128-lane rows
-and gathers whole 512-byte rows — XLA's row gather runs ~2.7x faster
-(measured 383M rows/s from a 16MB table, MEASURE_R2.json) — then extracts
-each index's lane with a one-hot compare + row reduction that XLA fuses into
-the gather consumer. Net measured 267M idx/s on the BM_Take shape (512Ki
-indices / 4Mi data) vs 77M for the element gather: the VERDICT item-3
-formulation, chosen over sort-merge-gather (two 2Mi-class sorts cost more
-than the gather saves; MEASURE_R2 sort table).
-
-Out-of-range behavior is 'fill'/clip (debug poison) rather than UB.
+Here: one XLA element gather. Out-of-range behavior is 'fill'/clip (debug
+poison) rather than UB.
 """
 
 from __future__ import annotations
@@ -23,144 +14,29 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 
-from .filter import _on_tpu
-
-_LANES = 128
-
 
 def _clip_u32(indices: jnp.ndarray, n: int) -> jnp.ndarray:
     """Clip indices to [0, n) through an UNSIGNED view: any out-of-range
     index (including an int32-negative bit pattern) maps to data[n-1].
-    Every take path shares this so the sorted-stream kernel and the
-    row-gather overflow fallback agree on out-of-range inputs (advisor
-    round 3: int32 clip sent index >= 2^31 to data[0] on one path and
-    data[n-1] on the other)."""
+    Every take path shares this so they agree on out-of-range inputs (an
+    int32 clip would send index >= 2^31 to data[0])."""
     return jnp.minimum(indices.astype(jnp.uint32), jnp.uint32(n - 1)).astype(
         jnp.int32
     )
 
 
-_SPLIT_ABOVE = 1 << 21  # 8MB of u32: the measured row-gather rate knee
-
-
-@jax.jit
-def _take_rows_u32_flat(data: jnp.ndarray, indices: jnp.ndarray) -> jnp.ndarray:
-    n = data.shape[0]
-    rows = data.reshape(n // _LANES, _LANES)
-    idx = _clip_u32(indices, n)
-    r = idx >> 7
-    lane = idx & jnp.int32(_LANES - 1)
-    g = jnp.take(rows, r, axis=0)  # (k, 128) row gather
-    oh = (
-        jax.lax.broadcasted_iota(jnp.int32, (indices.shape[0], _LANES), 1)
-        == lane[:, None]
-    )
-    return jnp.sum(jnp.where(oh, g, 0), axis=1).astype(data.dtype)
-
-
-@jax.jit
-def _take_rows_u32(data: jnp.ndarray, indices: jnp.ndarray) -> jnp.ndarray:
-    """Row-gather fast path for 1-D 32-bit data, n a multiple of 128.
-
-    Gathers the 128-lane row holding each index, then selects the lane via a
-    one-hot reduction (take_along_axis would be a second element gather —
-    measured 58M idx/s; the one-hot fuses).
-
-    Above 2Mi elements the row-gather rate falls off a cliff (383M rows/s at
-    <=8MB tables vs 88M at 16MB, MEASURE_R2 + round-2 sweep), and one
-    2-way table split recovers much of it: two half-table ROW gathers with
-    clipped local row ids, one row select, then a single one-hot extract —
-    interleaved A/B on the 4Mi BM_Take shape: 88M unsplit, 157M with
-    per-half extracts, 173M with this row-preselect form (4-way splits
-    measured WORSE, 76-96M, so the split is binary). The remaining cost is
-    extract-bound: ~4 vector passes over the (k,128) gathered-row
-    intermediate."""
-    n = data.shape[0]
-    if n <= _SPLIT_ABOVE or n % (2 * _LANES) != 0:
-        return _take_rows_u32_flat(data, indices)
-    h = n // 2
-    hr = h // _LANES
-    idx = _clip_u32(indices, n)
-    r = idx >> 7
-    lane = idx & jnp.int32(_LANES - 1)
-    ga = jnp.take(
-        data[:h].reshape(hr, _LANES), jnp.minimum(r, hr - 1), axis=0
-    )
-    gb = jnp.take(
-        data[h:].reshape(hr, _LANES), jnp.maximum(r - hr, 0), axis=0
-    )
-    g = jnp.where((r < hr)[:, None], ga, gb)
-    oh = (
-        jax.lax.broadcasted_iota(jnp.int32, (indices.shape[0], _LANES), 1)
-        == lane[:, None]
-    )
-    return jnp.sum(jnp.where(oh, g, 0), axis=1).astype(data.dtype)
-
-
-def _row_path_ok(data: jnp.ndarray, indices: jnp.ndarray) -> bool:
-    return (
-        data.ndim == 1
-        and indices.ndim == 1
-        and data.dtype.itemsize == 4
-        and jnp.issubdtype(data.dtype, jnp.integer)
-        and data.shape[0] % _LANES == 0
-        and data.shape[0] > 0
-    )
-
-
 @partial(jax.jit, static_argnames=("fill",))
 def take(data: jnp.ndarray, indices: jnp.ndarray, fill: int | None = None) -> jnp.ndarray:
-    """Gather rows of ``data`` at ``indices`` (uint32)."""
+    """Gather rows of ``data`` at ``indices`` (uint32). Out-of-range
+    indices read data[n-1], or ``fill`` when given."""
     n = data.shape[0]
+    out = jnp.take(data, _clip_u32(indices, n), axis=0, mode="clip")
     if fill is None:
-        if _row_path_ok(data, indices):
-            return _take_rows_u32(data, indices)
-        return jnp.take(data, _clip_u32(indices, n), axis=0, mode="clip")
-    if _row_path_ok(data, indices):
-        out = _take_rows_u32(data, indices)
-        in_range = indices.astype(jnp.uint32) < jnp.uint32(n)
-        return jnp.where(in_range, out, data.dtype.type(fill))
-    return jnp.take(
-        data, indices.astype(jnp.int32), axis=0, mode="fill", fill_value=fill
-    )
-
-
-def take_fast(
-    data: jnp.ndarray, indices: jnp.ndarray, interpret: bool = False
-) -> jnp.ndarray:
-    """Host-side take dispatcher: the sorted-stream Pallas path when eligible
-    (ops/take_pallas.py — sort indices, one streaming table pass, sort back;
-    no random access), with window-overflow doubling retry for adversarially
-    clustered indices, else the row-gather path.
-
-    Not jittable (the retry inspects the overflow flag host-side); jitted
-    callers use take()/take_sorted directly and handle the flag themselves
-    (TakeTpu, run_benchmarks take_kernel)."""
-    from .take_pallas import (
-        MAX_WINDOW_ROWS,
-        default_window_rows,
-        take_sorted,
-        takeable_sorted,
-    )
-
-    if not (
-        _row_path_ok(data, indices)
-        and takeable_sorted(data.shape[0], indices.shape[0])
-        and (_on_tpu() or interpret)
-    ):
-        return take(data, indices)
-    wr = default_window_rows(data.shape[0], indices.shape[0])
-    # doubling capped by the kernel's scoped-VMEM window ceiling: beyond it
-    # the compile itself fails (round-4 take4 campaign), so adversarial
-    # clustering lands on the row-gather path instead
-    max_wr = min((indices.shape[0] // _LANES) + 1, MAX_WINDOW_ROWS)
-    while True:
-        out, flag = take_sorted(data, indices, window_rows=wr, interpret=interpret)
-        if not int(flag):
-            return out
-        if wr >= max_wr:
-            return take(data, indices)
-        wr = min(2 * wr, max_wr)
+        return out
+    # unsigned compare: jnp.take would wrap int32-negative indices
+    in_range = indices.astype(jnp.uint32) < jnp.uint32(n)
+    in_range = in_range.reshape(in_range.shape + (1,) * (data.ndim - 1))
+    return jnp.where(in_range, out, data.dtype.type(fill))
 
 
 @jax.jit

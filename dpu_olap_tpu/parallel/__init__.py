@@ -1,6 +1,6 @@
-"""Device-mesh runtime and distributed shuffle (the ICI data plane).
+"""Device-mesh runtime and distributed shuffle.
 
-The TPU-native replacement for the reference's host/dpuext runtime + shuffle
+The replacement for the reference's host/dpuext runtime + shuffle
 engine (SURVEY §5.8): the DpuSet rank tree becomes a jax.sharding.Mesh, the
 push/sg transfers become shardings + a padded ragged all-to-all, and the
 async rank-callback pipeline becomes XLA async dispatch.

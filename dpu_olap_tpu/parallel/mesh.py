@@ -4,7 +4,7 @@ Reference: dpu::DpuSet (host/dpuext/dpuext.hpp:664-929) — allocate N devices,
 load a program, scatter/broadcast/gather buffers, launch, sync; topology is a
 flat set -> ranks(64) -> dpus tree (:792-817).
 
-TPU-native: allocation is a jax.sharding.Mesh over the visible chips; there
+Here: allocation is a jax.sharding.Mesh over the visible devices; there
 is no program-load step (XLA compiles jitted programs per shape); scatter /
 broadcast / gather are shardings (device_put with a NamedSharding);
 ``exec`` is calling a jitted function; ``sync`` is block_until_ready. The
@@ -70,13 +70,9 @@ class DeviceSet:
 
     def shard_fn(self, fn: Callable, in_specs, out_specs) -> Callable:
         """Wrap an SPMD function over the mesh (the kernel-launch analog —
-        one program instance per device, like exec(), dpuext.hpp:637-642).
-
-        check_vma=False: Pallas kernels inside the body can't annotate their
-        outputs' varying-over-mesh type, which the checker requires."""
+        one program instance per device, like exec(), dpuext.hpp:637-642)."""
         sm = jax.shard_map(
-            fn, mesh=self.mesh, in_specs=in_specs, out_specs=out_specs,
-            check_vma=False,
+            fn, mesh=self.mesh, in_specs=in_specs, out_specs=out_specs
         )
         return jax.jit(sm)
 

@@ -5,11 +5,11 @@ host/take/take_dpu.cc:62-91 — when #batches > NR_DPUS, rounds of NR_DPUS
 batches stream through fixed device buffers, with per-rank async callback
 chains overlapping copy-in / exec / copy-out (dpuext.hpp:859-899).
 
-TPU-native restatement:
+Restatement:
   * host staging (np.stack of the round's batches) runs on a background
     thread one round ahead of the device — the copy/compute overlap the
     reference builds from rank callbacks;
-  * device dispatch is JAX-async (the call returns before the TPU finishes),
+  * device dispatch is JAX-async (the call returns before the device finishes),
     so successive rounds queue back-to-back on the device stream;
   * results are collected in order, and at most ``max_inflight`` dispatched
     rounds may be outstanding before the collector blocks — bounding device
@@ -58,7 +58,7 @@ def stream_rounds(
         with timed(timers, "collect", r):
             return collect(r, h)
 
-    # Copy-out runs on its own single worker (round-3 verdict item 5): a
+    # Copy-out runs on its own single worker: a
     # synchronous collect() per round serialized the host readback with the
     # next dispatch, so device compute never overlapped copy-out (the
     # reference overlaps them with per-rank callback chains,
@@ -86,20 +86,31 @@ def stream_rounds(
         return [f.result() for f in futs]
 
 
+# Device bytes per streamed row: the staged input, the operator's outputs
+# and temporaries, for each of the FLAGS.stream_max_inflight rounds in
+# flight, with headroom.
+STREAM_BYTES_PER_ROW = 256
+
+
 def round_geometry(
     n_batches: int, n_devices: int, rows_per_batch: int,
     round_rows: int | None = None,
 ) -> tuple[int, int]:
     """Choose (batches_per_device_per_round, n_rounds) such that one round
-    holds at most ``round_rows`` rows device-resident (FLAGS.stream_round_rows
-    default) — the TPU sizing analog of the reference's fixed MRAM buffers
-    (8Mi items, dpu/filter/main.c:20).
+    holds at most ``round_rows`` rows device-resident across all devices
+    (default FLAGS.stream_round_rows, else derived from device memory at
+    STREAM_BYTES_PER_ROW) — the sizing analog of the reference's fixed MRAM
+    buffers (8Mi items, dpu/filter/main.c:20).
 
     n_batches must be a multiple of n_devices (the reference asserts
     batches % nr_dpus == 0, filter_dpu.cc:127).
     """
     if round_rows is None:
         round_rows = FLAGS.stream_round_rows
+    if round_rows is None:
+        from .. import backend
+
+        round_rows = n_devices * backend.rows_within(STREAM_BYTES_PER_ROW)
     assert n_batches % n_devices == 0
     per_dev = n_batches // n_devices
     max_rpr = max(1, round_rows // (n_devices * rows_per_batch))

@@ -124,8 +124,7 @@ def main():
         return total / ((time.perf_counter() - t0) / reps)
 
     def collective_count(d: int) -> int:
-        """all-to-all ops in the COMPILED distributed join (the round-3
-        verdict asked for the collective count as evidence: the stacked
+        """all-to-all ops in the COMPILED distributed join (the stacked
         exchange should leave 2 plane collectives + 2 counts collectives
         total, regardless of payload width)."""
         from dpu_olap_tpu.parallel.dist_join import _FN_CACHE
@@ -162,7 +161,6 @@ def main():
                     body, mesh=m,
                     in_specs=(P(AXIS),) * 4,
                     out_specs=(P(AXIS), P(AXIS), P(AXIS), P(AXIS), P(AXIS)),
-                    check_vma=False,
                 )
             )
             texts = [
@@ -229,9 +227,9 @@ def main():
         result["all_to_all_ops_in_program"] = collective_count(n_dev)
         result["platform"] = jax.devices()[0].platform
 
-        # ---- round-5: QUANTIFIED D-scaling attribution -------------------
-        # (verdict item 7: explain the shuffle-vs-control efficiency gap at
-        # D=8 with numbers, not assertion). Three measurements:
+        # ---- D-scaling attribution ---------------------------------------
+        # (explain the shuffle-vs-control efficiency gap at D=8 with
+        # numbers). Three measurements:
         #   1. chained phase attribution (fragments / exchange / local-join)
         #      at D=4 and D=8 — how much of the join is the all_to_all;
         #   2. the counts-fused single-collective exchange variant

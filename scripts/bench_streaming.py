@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Streaming-round pipeline evidence: overlap + flat throughput across SF.
 
-Two claims to demonstrate (VERDICT items 2 and 6):
+Two claims to demonstrate:
   1. Copy/compute overlap — the pipeline's wall time is less than the sum of
      its serialized phases (host staging + dispatch + collect), because
      staging runs one round ahead on a background thread while the device
@@ -13,7 +13,7 @@ Two claims to demonstrate (VERDICT items 2 and 6):
 
 Usage: [FORCE_CPU=1] [ROUND_ROWS=n] python scripts/bench_streaming.py
        [--sf 1 2 4 ...]
-Appends results to STREAMING_EVIDENCE.json.
+Appends results to bench_out/STREAMING_EVIDENCE.json.
 """
 
 from __future__ import annotations
@@ -31,8 +31,6 @@ if os.environ.get("FORCE_CPU") == "1":
     os.environ["XLA_FLAGS"] = (
         os.environ.get("XLA_FLAGS", "") + " --xla_force_host_platform_device_count=8"
     )
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_tpu_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
 
 
 def main():
@@ -40,6 +38,9 @@ def main():
 
     if os.environ.get("FORCE_CPU") == "1":
         jax.config.update("jax_platforms", "cpu")
+    from dpu_olap_tpu import backend
+
+    backend.use_compile_cache()
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--sf", type=int, nargs="+", default=[1, 2, 4])
@@ -56,7 +57,8 @@ def main():
 
     ds = DeviceSet.allocate()
     d = ds.nr_devices
-    out_path = Path(__file__).resolve().parents[1] / "STREAMING_EVIDENCE.json"
+    out_path = Path(__file__).resolve().parents[1] / "bench_out" / "STREAMING_EVIDENCE.json"
+    out_path.parent.mkdir(exist_ok=True)
     results = json.loads(out_path.read_text()) if out_path.exists() else []
 
     for sf in args.sf:
@@ -91,6 +93,8 @@ def main():
         rec = {
             "op": args.op,
             "sf": sf,
+            "platform": jax.devices()[0].platform,
+            "device_kind": jax.devices()[0].device_kind,
             "devices": d,
             "rounds": getattr(op, "n_rounds", 1),
             "rows": rows,

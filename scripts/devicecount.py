@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Device inventory (reference scripts/dpucount.py analog: allocate-all and
 report the count; here the fleet is the JAX device set, with platform and
-per-device attributes — the TPU 'how much hardware do I have' probe)."""
+per-device attributes — the 'how much hardware do I have' probe)."""
 
 import sys
 from pathlib import Path

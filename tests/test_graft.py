@@ -35,4 +35,4 @@ def test_dryrun_fresh_process_no_env():
         env={"PATH": "/usr/bin:/bin:/usr/local/bin", "HOME": "/root"},
     )
     assert r.returncode == 0, r.stderr[-800:]
-    assert "flat mesh ok" in r.stdout and "hierarchical" in r.stdout
+    assert "flat mesh ok" in r.stdout and "resident repartition ok" in r.stdout

@@ -86,7 +86,7 @@ def test_sequential_pk_keys(rng):
     np.testing.assert_array_equal(np.asarray(got), vals)
 
 
-# ---- sorted-store table (the performant TPU-native ht; hashtable.py) ----
+# ---- sorted-store table (hashtable.py) ----
 
 
 def _oracle(keys, vals, queries):
@@ -124,18 +124,18 @@ def test_sorted_probe_hit_miss_mix(rng):
 
 
 def test_sorted_probe_interpret_pallas_path(rng):
-    # The real TPU path (bitonic sorts + merge_probe kernel) in interpret
-    # mode — the simulator tier of the reference's hashtable device test.
+    # Hit/miss mix over a table of random unique keys — the simulator tier
+    # of the reference's hashtable device test.
     n = 1 << 14
     keys = rng.choice(np.uint32(2**32 - 2), size=n, replace=False).astype(np.uint32)
     vals = rng.integers(0, 2**32, size=n, dtype=np.uint32)
-    table = ht_build_sorted(jnp.asarray(keys), jnp.asarray(vals), interpret=True)
+    table = ht_build_sorted(jnp.asarray(keys), jnp.asarray(vals))
     queries = np.concatenate(
         [keys[rng.integers(0, n, n // 2)],
          rng.integers(0, 2**32 - 2, size=n // 2, dtype=np.uint32)]
     )
     rng.shuffle(queries)
-    got, found = ht_probe_sorted(table, jnp.asarray(queries), interpret=True)
+    got, found = ht_probe_sorted(table, jnp.asarray(queries))
     exp_val, exp_found = _oracle(keys, vals, queries)
     np.testing.assert_array_equal(np.asarray(found), exp_found)
     np.testing.assert_array_equal(np.asarray(got), exp_val)
@@ -175,10 +175,10 @@ def test_probe_sorted_empty_queries_nonpow2(rng):
     n, k = 16 << 10, 9_001
     keys = rng.permutation(np.uint32(4 * n))[:n].astype(np.uint32)
     vals = keys ^ np.uint32(0xA5A5A5A5)
-    t = ht_build_sorted(jnp.asarray(keys), jnp.asarray(vals), interpret=True)
+    t = ht_build_sorted(jnp.asarray(keys), jnp.asarray(vals))
     q = rng.integers(0, 4 * n, k, dtype=np.uint32)
     q[rng.choice(k, 100, replace=False)] = EMPTY
-    got, found = ht_probe_sorted(t, jnp.asarray(q), interpret=True)
+    got, found = ht_probe_sorted(t, jnp.asarray(q))
     keyset = set(keys.tolist())
     exp_found = np.array([x != EMPTY and x in keyset for x in q.tolist()])
     np.testing.assert_array_equal(np.asarray(found), exp_found)
@@ -198,10 +198,10 @@ def test_probe_sorted_stream_orderfree(rng):
     rng.shuffle(queries)
     k = queries.size
     pos, got, found = ht_probe_sorted_stream(
-        table, jnp.asarray(queries), interpret=True
+        table, jnp.asarray(queries)
     )
     pos, got, found = np.asarray(pos), np.asarray(got), np.asarray(found)
-    assert pos.shape == got.shape == found.shape == (k,)  # k is pow2: no pads
+    assert pos.shape == got.shape == found.shape == (k,)
     assert np.array_equal(np.sort(pos), np.arange(k, dtype=np.uint32))
     # scatter-by-pos reconstructs the ordered probe exactly
     oval = np.zeros(k, np.uint32)
@@ -213,20 +213,19 @@ def test_probe_sorted_stream_orderfree(rng):
 
 
 def test_probe_sorted_stream_nonpow2_empty_queries(rng):
-    # non-pow2 k: the stream carries npow entries; pads have pos >= k and
-    # are never found (EMPTY key) even when REAL queries are EMPTY too
+    # non-pow2 k with EMPTY queries: every query appears once in the stream
+    # and EMPTY queries are never found
     from dpu_olap_tpu.ops.hashtable import EMPTY, ht_probe_sorted_stream
 
     n, k = 16 << 10, 9_001
     keys = rng.permutation(np.uint32(4 * n))[:n].astype(np.uint32)
     vals = keys ^ np.uint32(0xA5A5A5A5)
-    t = ht_build_sorted(jnp.asarray(keys), jnp.asarray(vals), interpret=True)
+    t = ht_build_sorted(jnp.asarray(keys), jnp.asarray(vals))
     q = rng.integers(0, 4 * n, k, dtype=np.uint32)
     q[rng.choice(k, 100, replace=False)] = EMPTY
-    pos, got, found = ht_probe_sorted_stream(t, jnp.asarray(q), interpret=True)
+    pos, got, found = ht_probe_sorted_stream(t, jnp.asarray(q))
     pos, got, found = np.asarray(pos), np.asarray(got), np.asarray(found)
-    npow = 1 << (k - 1).bit_length()
-    assert pos.shape == (npow,)
+    assert pos.shape == (k,)
     real = pos < k
     assert real.sum() == k
     assert not found[~real].any()

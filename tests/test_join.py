@@ -166,96 +166,18 @@ def test_fused_join_keys31_boundary_keys(rng):
     assert got == [(0, 21, 10), (1000, 23, 13), (0x7FFFFFFE, 20, 12)]
 
 
-def test_join_sorted_build_matches_fused(rng):
-    from dpu_olap_tpu.ops.merge_xla import join_shard_sorted_build
-    from dpu_olap_tpu.ops.join import join_shard_fused
-
-    n_r, n_l = 1 << 11, 3 << 10  # padded merge length non-trivial
-    pk = np.sort(rng.choice(np.uint32(1 << 20), n_r, replace=False)).astype(np.uint32)
-    fk = pk[rng.integers(0, n_r, n_l)]
-    fk[:64] = (1 << 20) + rng.integers(0, 50, 64).astype(np.uint32)  # misses
-    x = rng.integers(0, 2**32, n_r, dtype=np.uint32)
-    y = rng.integers(0, 2**32, n_l, dtype=np.uint32)
-
-    def canon(res):
-        fko, (yo,), (xo,), m = res
-        m = np.asarray(m)
-        rows = np.stack([np.asarray(fko)[m], np.asarray(yo)[m], np.asarray(xo)[m]])
-        return rows[:, np.lexsort(rows[::-1])]
-
-    a = canon(join_shard_sorted_build(
-        jnp.asarray(fk), (jnp.asarray(y),), jnp.asarray(pk), (jnp.asarray(x),)))
-    b = canon(join_shard_fused(
-        jnp.asarray(fk), (jnp.asarray(y),), jnp.asarray(pk), (jnp.asarray(x),),
-        keys31=True))
-    np.testing.assert_array_equal(a, b)
-
-
-def test_join_sorted_build_unsorted_pk(rng):
-    from dpu_olap_tpu.ops.merge_xla import join_shard_sorted_build
-    from dpu_olap_tpu.ops.join import join_shard_fused
-
-    n_r = n_l = 1 << 10
-    pk = rng.permutation(np.uint32(4 * n_r))[:n_r].astype(np.uint32)
-    fk = pk[rng.integers(0, n_r, n_l)]
-    x = rng.integers(0, 2**32, n_r, dtype=np.uint32)
-    y = rng.integers(0, 2**32, n_l, dtype=np.uint32)
-
-    def canon(res):
-        fko, (yo,), (xo,), m = res
-        m = np.asarray(m)
-        rows = np.stack([np.asarray(fko)[m], np.asarray(yo)[m], np.asarray(xo)[m]])
-        return rows[:, np.lexsort(rows[::-1])]
-
-    a = canon(join_shard_sorted_build(
-        jnp.asarray(fk), (jnp.asarray(y),), jnp.asarray(pk), (jnp.asarray(x),),
-        pk_sorted=False))
-    b = canon(join_shard_fused(
-        jnp.asarray(fk), (jnp.asarray(y),), jnp.asarray(pk), (jnp.asarray(x),),
-        keys31=True))
-    np.testing.assert_array_equal(a, b)
-
-
-def test_join_sorted_build_multi_payload(rng):
-    from dpu_olap_tpu.ops.merge_xla import join_shard_sorted_build
-    from dpu_olap_tpu.ops.join import join_shard_fused
-
-    n_r, n_l = 1 << 10, 1 << 11
-    pk = np.sort(rng.choice(np.uint32(1 << 18), n_r, replace=False)).astype(np.uint32)
-    fk = pk[rng.integers(0, n_r, n_l)]
-    xs = tuple(rng.integers(0, 2**32, n_r, dtype=np.uint32) for _ in range(2))
-    ys = tuple(rng.integers(0, 2**32, n_l, dtype=np.uint32) for _ in range(1))
-
-    def canon(res):
-        fko, lcols, rcols, m = res
-        m = np.asarray(m)
-        rows = np.stack([np.asarray(fko)[m]]
-                        + [np.asarray(c)[m] for c in lcols]
-                        + [np.asarray(c)[m] for c in rcols])
-        return rows[:, np.lexsort(rows[::-1])]
-
-    a = canon(join_shard_sorted_build(
-        jnp.asarray(fk), tuple(map(jnp.asarray, ys)),
-        jnp.asarray(pk), tuple(map(jnp.asarray, xs))))
-    b = canon(join_shard_fused(
-        jnp.asarray(fk), tuple(map(jnp.asarray, ys)),
-        jnp.asarray(pk), tuple(map(jnp.asarray, xs)), keys31=True))
-    np.testing.assert_array_equal(a, b)
-
-
 def test_join_shard_dense_differential():
-    """Dense-pk gather join (ops/merge_xla.join_shard_dense) vs the Arrow
+    """Dense-pk gather join (ops/join.join_shard_dense) vs the Arrow
     oracle — the reference generator's sequential-pk workload."""
-    from dpu_olap_tpu.ops.merge_xla import join_shard_dense
+    from dpu_olap_tpu.ops.join import join_shard_dense
 
     left, right = make_join_tables(
         num_batches=1, left_batch_size=1 << 13, right_batch_size=1 << 12
     )
     lb, rb = left[0], right[0]
-    fk, (y,), (x,), matched, ovf = join_shard_dense(
-        lb["fk"], (lb["y"],), rb["pk"], (rb["x"],), interpret=True
+    fk, (y,), (x,), matched = join_shard_dense(
+        lb["fk"], (lb["y"],), rb["pk"], (rb["x"],)
     )
-    assert int(ovf) == 0
     assert bool(jnp.all(matched))
     cols = join_result_to_numpy(fk, (y,), (x,), matched)
     got = pa.Table.from_arrays(
@@ -271,7 +193,7 @@ def test_join_shard_dense_differential():
 def test_join_shard_dense_unmatched_and_offset():
     """fk values outside the dense pk range are masked out; pk may start at
     a nonzero offset (per-batch dense runs)."""
-    from dpu_olap_tpu.ops.merge_xla import join_shard_dense
+    from dpu_olap_tpu.ops.join import join_shard_dense
 
     rng = np.random.default_rng(7)
     n_r, n_l = 1 << 12, 1 << 13
@@ -280,11 +202,9 @@ def test_join_shard_dense_unmatched_and_offset():
     x = rng.integers(0, 2**32, n_r, dtype=np.uint32)
     fk = rng.integers(0, lo + n_r + 500, n_l, dtype=np.uint32)  # some miss
     y = rng.integers(0, 2**32, n_l, dtype=np.uint32)
-    kf, (yo,), (xo,), matched, ovf = join_shard_dense(
+    kf, (yo,), (xo,), matched = join_shard_dense(
         jnp.asarray(fk), (jnp.asarray(y),), jnp.asarray(pk), (jnp.asarray(x),),
-        interpret=True,
     )
-    assert int(ovf) == 0
     m = np.asarray(matched)
     in_range = (fk >= lo) & (fk < lo + n_r)
     assert m.sum() == in_range.sum()

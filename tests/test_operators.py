@@ -1,4 +1,4 @@
-"""Operator-level differential tests: Tpu vs Native on identical seeded
+"""Operator-level differential tests: device vs Native on identical seeded
 inputs — the reference's core test strategy (SURVEY §4)."""
 
 import numpy as np
@@ -82,11 +82,39 @@ def test_join_operator_partitioned_path(ds):
     # fallback) by shrinking the residency budget
     left, right = make_join_tables(16, 1 << 10, 1 << 9)
     op = JoinTpu(ds, left, right).Prepare()
-    op.MAX_RESIDENT_ROWS = 1 << 10  # everything "too big"
+    op.max_resident_rows = 1 << 10  # everything "too big"
     got = op.Run()
     expect = JoinNative(left, right).Prepare().Run()
     assert len(got["fk"]) == expect.num_rows
     _join_outputs_equal(got, expect)
+
+
+@pytest.mark.parametrize(
+    "budget, route", [(2 << 10, "ici"), ((2 << 10) - 1, "partitioned")]
+)
+def test_join_route_budget_is_per_device(ds, budget, route):
+    # 16Ki left rows over 8 devices: 2Ki per device against the budget
+    left, right = make_join_tables(16, 1 << 10, 1 << 9)
+    op = JoinTpu(ds, left, right).Prepare()
+    op.max_resident_rows = budget
+    assert op.route() == route
+
+
+@pytest.mark.parametrize("budget, resident", [(1 << 10, True), ((1 << 10) - 1, False)])
+def test_partition_engine_budget_is_per_device(ds, budget, resident):
+    # 8Ki rows over 8 devices: 1Ki per device against the budget
+    table = make_filter_batches(8, 1 << 10)
+    op = PartitionTpu(ds, table, "a", 8)
+    op.max_resident_rows = budget
+    assert op.Prepare().resident is resident
+
+
+def test_join_route_single_device():
+    left, right = make_join_tables(2, 1 << 10, 1 << 9)
+    op = JoinTpu(DeviceSet.allocate(1), left, right).Prepare()
+    assert op.route() == "single"
+    op.single_round_rows = (2 << 10) - 1  # needs more than one round
+    assert op.route() == "ici"
 
 
 def test_join_operator_many_batches_ici(ds):
@@ -111,7 +139,7 @@ def test_join_native_partitioned_mode():
 
 
 def test_join_operator_empty_batch_prepare(ds):
-    # zero-row batches must not break the keys31/pk_sorted host scans
+    # zero-row batches must not break the keys31/pk_dense host scans
     from dpu_olap_tpu.columnar import Batch, Table
 
     left, right = make_join_tables(7, 1 << 10, 1 << 9)
@@ -120,7 +148,7 @@ def test_join_operator_empty_batch_prepare(ds):
     lt = Table([*list(left), empty_l])
     rt = Table([*list(right), empty_r])
     op = JoinTpu(ds, lt, rt).Prepare()
-    assert op.keys31 and op.pk_sorted
+    assert op.keys31 and op.pk_dense
 
 
 @pytest.mark.parametrize("impl", ["sort"])
@@ -266,5 +294,5 @@ def test_join_tpu_float_payloads_all_paths():
     # host-staged Partitioner path (large-working-set fallback)
     ds = DeviceSet.allocate(8)
     op = JoinTpu(ds, ltab, rtab).Prepare()
-    op.MAX_RESIDENT_ROWS = 1 << 10
+    op.max_resident_rows = 1 << 10
     check(op.Run(), "host-staged")

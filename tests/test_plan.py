@@ -243,9 +243,9 @@ def test_node_cache_not_keyed_on_recycled_id():
 
 
 def test_bare_source_join_uses_jointpu_routing(monkeypatch):
-    # A Source->Source HashJoin must go through JoinTpu (pk_dense/pk_sorted
-    # routing + working-set budgets), NOT the fused tier (advisor round 3,
-    # plan.py medium). With transforms present the fused tier applies.
+    # A Source->Source HashJoin must go through JoinTpu (pk_dense routing +
+    # working-set budgets), NOT the fused tier. With transforms present the
+    # fused tier applies.
     from dpu_olap_tpu import plan as plan_mod
     from dpu_olap_tpu.parallel.mesh import DeviceSet
 

@@ -48,19 +48,6 @@ def test_sum_all_max_values():
     assert sum_u64(jnp.asarray(v)) == int(v.astype(np.uint64).sum())
 
 
-@pytest.mark.parametrize("n", [8 * 128, 1 << 17, 3 * 5 * 1024])
-def test_sum_pallas_kernel_exact(rng, n):
-    # the TPU hot path (interpret mode here), incl. the 16/16 carry splits
-    from dpu_olap_tpu.ops.aggregate import _sum_pallas_pair
-
-    v = rng.integers(0, 2**32, size=n, dtype=np.uint32)
-    v[: n // 2] = 0xFFFFFFFF  # stress the accumulator bounds
-    lo, hi = _sum_pallas_pair(jnp.asarray(v), interpret=True)
-    assert u64_pair_to_int(np.asarray(lo), np.asarray(hi)) == int(
-        v.astype(np.uint64).sum()
-    )
-
-
 def test_sum_double_vs_numpy(rng):
     # Double instantiation parity (aggr_native.cc:95-96): float column summed
     # via device f32 block partials + host f64 combine.
@@ -106,8 +93,7 @@ def test_take_row_path_vs_element_gather(rng):
     # row-gather fast path must be bit-identical to the element gather,
     # including clip behavior at the edges. Clip is through an UNSIGNED view
     # (ops.take._clip_u32): any out-of-range index — including an
-    # int32-negative bit pattern — maps to data[n-1], matching the
-    # sorted-stream take kernel so overflow fallbacks can't change outputs.
+    # int32-negative bit pattern — maps to data[n-1] on every take path.
     n = 4 * 128
     data = rng.integers(0, 2**32, n, dtype=np.uint32)
     idx = np.concatenate([
